@@ -2,7 +2,7 @@
 //
 // C++ implementation of the host-side serving hot path: the token-level radix
 // tree (prefix matching on every request admission — Python equivalent in
-// physics_llm_inference_tpu/runtime/radix_cache.py, capability parity with
+// physics_llm_inference/runtime/radix_cache.py, capability parity with
 // the reference's ch07/radix_cache.py plus refcounts and LRU eviction) and
 // the paged-KV block pool (ch07/paged_memory.py equivalent). Exposed through
 // a C ABI consumed via ctypes (no pybind11 in the image).

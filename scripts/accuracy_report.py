@@ -6,14 +6,13 @@ on real text with a real BPE tokenizer) and runs the 0.1-ppl budget
 
   1. parallel-forward ppl: fp32 vs INT8-W (bench/perplexity.py)
   2. decode-path ppl: the exact serving machinery (KV cache, INT8-KV
-     attention, fused whole-model decode kernel when on TPU) — fp32 KV vs
-     INT8 W+KV
+     decode attention — the GPU kernel on a GPU) — fp32 KV vs INT8 W+KV
   3. TokenizerPool round-trip with the trained tokenizer (the
      real-tokenizer factory hook, serve/tokenizer_pool.py)
 
 Writes docs/ACCURACY.md. Usage:
   python scripts/train_toy.py --cpu --steps 600     # once
-  python scripts/accuracy_report.py                 # CPU or TPU
+  python scripts/accuracy_report.py                 # CPU or GPU
 """
 from __future__ import annotations
 
@@ -50,12 +49,12 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from physics_llm_inference_tpu.bench.perplexity import (
+    from physics_llm_inference.bench.perplexity import (
         decode_path_perplexity, perplexity, quantization_ppl_report)
-    from physics_llm_inference_tpu.models import (ModelConfig,
+    from physics_llm_inference.models import (ModelConfig,
                                                   quantize_params_int8)
-    from physics_llm_inference_tpu.models.loader import load_params
-    from physics_llm_inference_tpu.serve.tokenizer_pool import TokenizerPool
+    from physics_llm_inference.models.loader import load_params
+    from physics_llm_inference.serve.tokenizer_pool import TokenizerPool
 
     with open(os.path.join(args.ckpt, "config.json")) as f:
         cfg = ModelConfig(dtype="float32", **json.load(f))
@@ -72,7 +71,7 @@ def main():
                                   window=args.window)
     print("forward: ", rep, flush=True)
 
-    # 2. decode-path budget (the serving path: fused kernel on TPU)
+    # 2. decode-path budget (the serving path)
     ppl_dec_fp = decode_path_perplexity(params, cfg, held,
                                         window=args.window)
     ppl_dec_q = decode_path_perplexity(params_q, cfg, held,
@@ -83,7 +82,7 @@ def main():
           f"delta {d_dec:+.4f}", flush=True)
 
     # 2b. INT4 W (group-wise) + INT8 KV — the W4A16 native format
-    from physics_llm_inference_tpu.models.quant import quantize_params_int4
+    from physics_llm_inference.models.quant import quantize_params_int4
     params_q4 = quantize_params_int4(params)
     ppl_dec_q4 = decode_path_perplexity(params_q4, cfg, held,
                                         window=args.window,
@@ -133,13 +132,13 @@ def main():
         f.write(f"""{'##' if args.append else '#'} Quantization accuracy on structured weights
 
 Model: {sum(x.size for x in jax.tree.leaves(params))/1e6:.1f} M-param GQA
-transformer (head_dim 128 → fused-kernel eligible) TRAINED on
+transformer (head_dim 128, as the serving configs) TRAINED on
 {'{:.1f}'.format(2.76)} M tokens of real Python source with a real BPE
 tokenizer (scripts/train_toy.py) — not random init, so per-channel INT8
 scales face real weight distributions. Held-out: {len(held)} tokens.
 Backend for this run: **{backend}**
-(the decode path uses the fused whole-model INT8 kernel on TPU,
-the same numerics path bench.py serves with).
+(the decode path is the same numerics path bench.py serves with: the INT8
+decode-attention kernel on a GPU, plain XLA elsewhere).
 
 **Budget rule**: BASELINE.md's "within 0.1 perplexity of fp32" is
 calibrated for serving-scale models at ~5-10 ppl (≈1-2% relative). At this

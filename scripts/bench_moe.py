@@ -1,8 +1,7 @@
-"""MoE decode throughput on real TPU (BASELINE config 5).
+"""MoE decode throughput on the GPU (BASELINE config 5).
 
 Serves an INT8 MoE config through the integrated generation path
-(cached_generate → per-op decode: the fused megakernel is dense-only, so
-this measures the routed-FFN per-op cost) and reports tok/s + TTFT against
+(cached_generate; this measures the routed-FFN cost) and reports tok/s + TTFT against
 two floors:
 
 - all-expert floor: every expert's weights stream per step (what GShard
@@ -37,22 +36,16 @@ def main():
     ap.add_argument("--expert-ff", type=int, default=2816)
     ap.add_argument("--prompt", type=int, default=128)
     ap.add_argument("--decode", type=int, default=64)
-    ap.add_argument("--no-fused", action="store_true",
-                    help="force the per-op decode path (dense configs "
-                         "otherwise take the megakernel; MoE is always "
-                         "per-op) — isolates the MoE routed-FFN premium "
-                         "vs a dense model of equal ACTIVE params")
     ap.add_argument("--engine", action="store_true",
                     help="serve the MoE model through the SLOT engine "
                          "(continuous batching + decode horizon) instead "
-                         "of cached_generate — the round-5 MoE SERVING "
-                         "measurement (the r4 verdict's ask)")
+                         "of cached_generate")
     args = ap.parse_args()
 
-    from physics_llm_inference_tpu.models import (ModelConfig, init_params,
+    from physics_llm_inference.models import (ModelConfig, init_params,
                                                   quantize_params_int8)
-    from physics_llm_inference_tpu.runtime import cached_generate
-    from physics_llm_inference_tpu.specs import get_tpu_spec
+    from physics_llm_inference.runtime import cached_generate
+    from physics_llm_inference.specs import get_device_spec
 
     cfg = ModelConfig(vocab_size=32000, max_seq_len=1024, dtype="bfloat16",
                       hidden_dim=args.hidden, num_layers=args.layers,
@@ -60,10 +53,9 @@ def main():
                       intermediate_dim=args.expert_ff,
                       num_experts=args.experts,
                       num_experts_per_tok=args.topk,
-                      expert_capacity_factor=1.25,
-                      fused_decode=not args.no_fused)
+                      expert_capacity_factor=1.25)
     # init_params_int8 is dense-only; MoE leaves come from the bf16 init +
-    # quantization pass (2.4B bf16 transient fits 16 GB HBM)
+    # quantization pass
     params = quantize_params_int8(init_params(jax.random.PRNGKey(0), cfg))
     # real parameter count from leaf sizes (ModelConfig.param_count is
     # dense-only and undercounts the E-times expert stacks)
@@ -86,11 +78,11 @@ def main():
         # chunked prefill, multi-step decode — the per-op MoE FFN path
         # dispatched by the same _ffn the dense engine uses. Closed-loop
         # 2x oversubscription; ch10 harness metrics.
-        from physics_llm_inference_tpu.bench.harness import (
+        from physics_llm_inference.bench.harness import (
             BenchmarkConfig, run_benchmark)
-        from physics_llm_inference_tpu.serve.engine import (
+        from physics_llm_inference.serve.engine import (
             EngineConfig, GenerationRequest, InferenceEngine)
-        from physics_llm_inference_tpu.serve.http_server import ServingLoop
+        from physics_llm_inference.serve.http_server import ServingLoop
 
         ec = EngineConfig(num_slots=args.batch,
                           max_seq_len=-(-(args.prompt + args.decode)
@@ -147,7 +139,7 @@ def main():
     runs.sort(key=lambda o: o.decode_tokens_per_s)
     out = runs[len(runs) // 2]
 
-    spec = get_tpu_spec()
+    spec = get_device_spec()
     kv_bytes = (2 * cfg.num_layers * args.batch
                 * (args.prompt + args.decode) * cfg.num_kv_heads
                 * cfg.head_dim)

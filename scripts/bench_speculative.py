@@ -31,7 +31,7 @@ import numpy as np
 
 
 def run_case(params, cfg, k, prompts, decode, label):
-    from physics_llm_inference_tpu.serve.engine import (EngineConfig,
+    from physics_llm_inference.serve.engine import (EngineConfig,
                                                         GenerationRequest,
                                                         InferenceEngine)
 
@@ -65,8 +65,8 @@ def main():
     ap.add_argument("--decode", type=int, default=64)
     args = ap.parse_args()
 
-    from physics_llm_inference_tpu.models import ModelConfig
-    from physics_llm_inference_tpu.models.quant import init_params_int8
+    from physics_llm_inference.models import ModelConfig
+    from physics_llm_inference.models.quant import init_params_int8
 
     cfg = ModelConfig(vocab_size=32000, max_seq_len=512, dtype="bfloat16",
                       hidden_dim=4096, num_layers=32, num_heads=32,

@@ -7,8 +7,7 @@ Corpus: Python source shipped in the image (site-packages) — real, highly
 structured text, no network needed. Tokenizer: a REAL BPE trained on the
 corpus with the `tokenizers` library (also exercises the TokenizerPool
 real-tokenizer factory, serve/tokenizer_pool.py). Model: GQA transformer
-with head_dim 128 so the INT8 fused decode kernel is eligible
-(kernels/fused_decode.py shape gates).
+with head_dim 128, as the serving configs.
 
 Outputs (under --out, default checkpoints/toy/):
   tokenizer.json   trained BPE
@@ -16,7 +15,7 @@ Outputs (under --out, default checkpoints/toy/):
   heldout.npy      held-out token stream for perplexity
   config.json      the ModelConfig fields
 
-Usage: python scripts/train_toy.py --steps 500    (CPU ok, TPU faster)
+Usage: python scripts/train_toy.py --steps 500    (CPU ok, GPU faster)
 """
 from __future__ import annotations
 
@@ -91,9 +90,9 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from physics_llm_inference_tpu.models import ModelConfig, init_params
-    from physics_llm_inference_tpu.models.loader import save_params
-    from physics_llm_inference_tpu.models.transformer import forward
+    from physics_llm_inference.models import ModelConfig, init_params
+    from physics_llm_inference.models.loader import save_params
+    from physics_llm_inference.models.transformer import forward
 
     os.makedirs(args.out, exist_ok=True)
     print("building corpus...", flush=True)
@@ -110,8 +109,8 @@ def main():
     shape = {
         "14m": dict(hidden_dim=512, num_layers=4, num_heads=4,
                     num_kv_heads=2, intermediate_dim=1408),
-        # ~143M params at vocab 4096 (head_dim stays 128 → fused-kernel
-        # eligible GQA, same family as the serving configs)
+        # ~143M params at vocab 4096 (head_dim stays 128: GQA of the same
+        # family as the serving configs)
         "140m": dict(hidden_dim=1024, num_layers=12, num_heads=8,
                      num_kv_heads=2, intermediate_dim=2816),
     }[args.size]

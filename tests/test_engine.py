@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import ModelConfig, init_params
-from physics_llm_inference_tpu.runtime import cached_generate
-from physics_llm_inference_tpu.serve import (
+from physics_llm_inference.models import ModelConfig, init_params
+from physics_llm_inference.runtime import cached_generate
+from physics_llm_inference.serve import (
     InferenceEngine, EngineConfig, GenerationRequest,
 )
 
@@ -45,7 +45,7 @@ class TestSingleRequest:
         """kv_dtype='int8' builds a real QuantKV slot pool (not truncated
         raw int8) and greedy output matches the int8 generate path."""
         import jax.numpy as jnp
-        from physics_llm_inference_tpu.models.transformer import QuantKV
+        from physics_llm_inference.models.transformer import QuantKV
 
         prompt = [5, 17, 3, 42, 8]
         eng = engine(params, kv_dtype="int8")
@@ -328,7 +328,7 @@ class TestMixedIterations:
         assert eng.get_result(long).tokens == list(ref.tokens[0])
 
     def test_paged_decode_interleaves_long_prefill(self, params):
-        from physics_llm_inference_tpu.serve.paged_engine import (
+        from physics_llm_inference.serve.paged_engine import (
             PagedEngineConfig, PagedInferenceEngine)
 
         eng = PagedInferenceEngine(params, CFG, PagedEngineConfig(

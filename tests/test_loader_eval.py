@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from physics_llm_inference_tpu.models import (
+from physics_llm_inference.models import (
     ModelConfig, init_params, forward, quantize_params_int8,
 )
-from physics_llm_inference_tpu.models.loader import (
+from physics_llm_inference.models.loader import (
     params_from_hf_state_dict, save_params, load_params,
 )
-from physics_llm_inference_tpu.bench.perplexity import (
+from physics_llm_inference.bench.perplexity import (
     perplexity, quantization_ppl_report,
 )
 
@@ -78,7 +78,7 @@ class TestCheckpointRoundtrip:
         np.testing.assert_allclose(a, b, atol=1e-6)
 
     def test_save_load_int8(self, tmp_path):
-        from physics_llm_inference_tpu.models import QuantizedTensor
+        from physics_llm_inference.models import QuantizedTensor
 
         qp = quantize_params_int8(init_params(jax.random.PRNGKey(0), CFG))
         path = str(tmp_path / "ckpt8.npz")
@@ -112,7 +112,7 @@ class TestPerplexity:
 
     def test_decode_path_matches_parallel_forward(self):
         """Stepwise decode-path NLL ≡ parallel-forward NLL (fp32, dense)."""
-        from physics_llm_inference_tpu.bench.perplexity import (
+        from physics_llm_inference.bench.perplexity import (
             decode_path_perplexity)
 
         params = init_params(jax.random.PRNGKey(0), CFG)
@@ -124,7 +124,7 @@ class TestPerplexity:
     def test_decode_path_int8_within_budget(self):
         """The full quantized serving path (INT8 W+KV, cache machinery)
         holds the BASELINE perplexity budget on the toy model."""
-        from physics_llm_inference_tpu.bench.perplexity import (
+        from physics_llm_inference.bench.perplexity import (
             decode_path_perplexity)
 
         params = init_params(jax.random.PRNGKey(0), CFG)

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import (
+from physics_llm_inference.models import (
     ModelConfig, MoEConfig, TOY_CONFIG, LLAMA_7B_CONFIG, QWEN3_CONFIG,
     init_params, forward, count_parameters,
     router, moe_layer, init_moe_params, expert_load_balance_loss,
 )
-from physics_llm_inference_tpu.models.transformer import KVSlice
+from physics_llm_inference.models.transformer import KVSlice
 
 SMALL = ModelConfig(vocab_size=100, hidden_dim=64, num_layers=2, num_heads=4,
                     num_kv_heads=2, intermediate_dim=128, max_seq_len=64,
@@ -50,7 +50,7 @@ class TestTransformer:
         # logits = lm_head(norm(embed)) — finite and shape-correct is the
         # contract; block contributed nothing.
         x = p["embed"][ids]
-        from physics_llm_inference_tpu.ops import rms_norm
+        from physics_llm_inference.ops import rms_norm
         expected = rms_norm(x, p["norm"]) @ p["lm_head"]
         np.testing.assert_allclose(logits, expected, atol=1e-4)
 
@@ -135,7 +135,7 @@ class TestMoE:
     def test_moe_matches_dense_reference(self, moe_params):
         """Capacity-grid dispatch ≡ explicit per-expert loop (the reference
         algorithm, ch09/moe_layer.py:66-81) when capacity is ample."""
-        from physics_llm_inference_tpu.ops import swiglu
+        from physics_llm_inference.ops import swiglu
 
         moe = MoEConfig(num_experts=4, num_experts_per_tok=2,
                         capacity_factor=8.0)  # no drops
@@ -187,7 +187,7 @@ class TestMoETransformer:
         np.testing.assert_allclose(logits[0, :-1], logits2[0, :-1], atol=1e-4)
 
     def test_moe_generation(self):
-        from physics_llm_inference_tpu.runtime import cached_generate
+        from physics_llm_inference.runtime import cached_generate
 
         params = init_params(jax.random.PRNGKey(1), self.MOE_CFG)
         out = cached_generate(params, self.MOE_CFG, [[1, 2, 3]], 6,

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import (
+from physics_llm_inference.models import (
     ModelConfig, MoEConfig, init_moe_params, moe_layer,
 )
-from physics_llm_inference_tpu.models.moe_inference import (
+from physics_llm_inference.models.moe_inference import (
     ExpertCache, MoEInferencePlanner,
 )
-from physics_llm_inference_tpu.parallel import make_mesh
-from physics_llm_inference_tpu.parallel.ep import moe_layer_ep
+from physics_llm_inference.parallel import make_mesh
+from physics_llm_inference.parallel.ep import moe_layer_ep
 
 
 class TestExpertCache:
@@ -110,7 +110,7 @@ class TestQuantizedMoE:
         import jax
         import jax.numpy as jnp
         import numpy as np
-        from physics_llm_inference_tpu.models import (ModelConfig,
+        from physics_llm_inference.models import (ModelConfig,
                                                       init_params, forward,
                                                       quantize_params_int8)
 
@@ -129,10 +129,10 @@ class TestQuantizedMoE:
     def test_int8_moe_generation_runs(self):
         import jax
         import jax.numpy as jnp
-        from physics_llm_inference_tpu.models import (ModelConfig,
+        from physics_llm_inference.models import (ModelConfig,
                                                       init_params,
                                                       quantize_params_int8)
-        from physics_llm_inference_tpu.runtime import cached_generate
+        from physics_llm_inference.runtime import cached_generate
 
         cfg = ModelConfig(vocab_size=100, hidden_dim=64, num_layers=2,
                           num_heads=4, num_kv_heads=2, intermediate_dim=96,

@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import (ModelConfig, init_params,
+from physics_llm_inference.models import (ModelConfig, init_params,
                                               quantize_params_int8)
-from physics_llm_inference_tpu.runtime import cached_generate
-from physics_llm_inference_tpu.serve.engine import (EngineConfig,
+from physics_llm_inference.runtime import cached_generate
+from physics_llm_inference.serve.engine import (EngineConfig,
                                                     GenerationRequest,
                                                     InferenceEngine)
-from physics_llm_inference_tpu.serve.paged_engine import (PagedEngineConfig,
+from physics_llm_inference.serve.paged_engine import (PagedEngineConfig,
                                                           PagedInferenceEngine)
 
 MOE_CFG = ModelConfig(vocab_size=256, hidden_dim=64, num_layers=2,
@@ -48,8 +48,8 @@ class TestPadRouting:
         run of identical pads (all routed to the same top-2 experts, and
         FIRST in the capacity cumsum) exhausts those experts before any
         real token — the bug this guards against."""
-        from physics_llm_inference_tpu.models.config import MoEConfig
-        from physics_llm_inference_tpu.models.moe import (init_moe_params,
+        from physics_llm_inference.models.config import MoEConfig
+        from physics_llm_inference.models.moe import (init_moe_params,
                                                           moe_layer)
 
         moe = MoEConfig(num_experts=4, num_experts_per_tok=2,
@@ -165,7 +165,7 @@ class TestMoEThroughEngines:
         """MoE model through the TP-sharded paged engine: expert weights
         replicate across 'model' (they shard over 'expert' in parallel/ep.py)
         while attention/embed/lm_head shard — greedy parity holds."""
-        from physics_llm_inference_tpu.parallel import make_mesh
+        from physics_llm_inference.parallel import make_mesh
 
         params = init_params(jax.random.PRNGKey(0), MOE_CFG)
         pc = PagedEngineConfig(num_blocks=32, block_size=8, max_batch=3,
@@ -183,8 +183,8 @@ class TestCapacityPressure:
     (they use factor 4.0 so cross-engine token parity is well-defined)."""
 
     def test_drops_occur_at_realistic_capacity(self):
-        from physics_llm_inference_tpu.models.config import MoEConfig
-        from physics_llm_inference_tpu.models.moe import (init_moe_params,
+        from physics_llm_inference.models.config import MoEConfig
+        from physics_llm_inference.models.moe import (init_moe_params,
                                                           moe_layer)
 
         moe = MoEConfig(num_experts=4, num_experts_per_tok=2,
@@ -202,8 +202,8 @@ class TestCapacityPressure:
         assert bool(jnp.all(jnp.isfinite(out)))
 
     def test_no_drops_when_capacity_ample(self):
-        from physics_llm_inference_tpu.models.config import MoEConfig
-        from physics_llm_inference_tpu.models.moe import (init_moe_params,
+        from physics_llm_inference.models.config import MoEConfig
+        from physics_llm_inference.models.moe import (init_moe_params,
                                                           moe_layer)
 
         moe = MoEConfig(num_experts=4, num_experts_per_tok=2,

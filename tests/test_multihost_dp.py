@@ -20,11 +20,11 @@ import jax
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import ModelConfig, init_params
-from physics_llm_inference_tpu.parallel.multihost import (
+from physics_llm_inference.models import ModelConfig, init_params
+from physics_llm_inference.parallel.multihost import (
     DPServingGroup, broadcast_bytes, decode_admissions, encode_admissions,
     initialize_multihost, pod_mesh)
-from physics_llm_inference_tpu.serve import (EngineConfig, GenerationRequest,
+from physics_llm_inference.serve import (EngineConfig, GenerationRequest,
                                              InferenceEngine)
 
 CFG = ModelConfig(vocab_size=100, hidden_dim=64, num_layers=2, num_heads=4,
@@ -158,13 +158,13 @@ WORKER_SCRIPT = textwrap.dedent("""
     pid = int(sys.argv[1]); port = sys.argv[2]; outdir = sys.argv[3]
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from physics_llm_inference_tpu.parallel.multihost import (
+    from physics_llm_inference.parallel.multihost import (
         initialize_multihost, DPServingGroup)
     info = initialize_multihost(coordinator_address=f"127.0.0.1:{port}",
                                 num_processes=2, process_id=pid)
     assert info["global_devices"] == 4, info
-    from physics_llm_inference_tpu.models import ModelConfig, init_params
-    from physics_llm_inference_tpu.serve import (InferenceEngine,
+    from physics_llm_inference.models import ModelConfig, init_params
+    from physics_llm_inference.serve import (InferenceEngine,
                                                  EngineConfig,
                                                  GenerationRequest)
     cfg = ModelConfig(vocab_size=100, hidden_dim=64, num_layers=2,
@@ -244,7 +244,7 @@ class TestDPScalingBench:
         """DP step time should stay ~flat as replicas grow (weights
         replicated, batch sharded) — efficiency well above half on the
         virtual mesh, and the row structure matches the TP bench."""
-        from physics_llm_inference_tpu.bench.scaling import (measure_dp_step,
+        from physics_llm_inference.bench.scaling import (measure_dp_step,
                                                              predict_dp_scaling)
 
         res = measure_dp_step(CFG, [1, 2, 4], batch_per_replica=2,

@@ -4,10 +4,10 @@ import random
 
 import pytest
 
-from physics_llm_inference_tpu.native import (
+from physics_llm_inference.native import (
     available, make_radix_cache, NativeBlockPool, NativeRadixCache,
 )
-from physics_llm_inference_tpu.runtime.radix_cache import RadixCache
+from physics_llm_inference.runtime.radix_cache import RadixCache
 
 needs_native = pytest.mark.skipif(not available(),
                                   reason="native lib not built")

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.ops import (
+from physics_llm_inference.ops import (
     rms_norm, rope_frequencies, apply_rope,
     naive_attention, causal_attention, multi_head_attention,
     attention_flops, attention_memory_bytes, attention_arithmetic_intensity,
@@ -136,7 +136,7 @@ class TestGQA:
     def test_bshd_layout_matches_bhsd(self):
         """grouped_sdpa_bshd (projection-layout variant, a recorded round-5
         negative result — see its docstring) ≡ transpose + grouped_sdpa."""
-        from physics_llm_inference_tpu.ops.gqa import (grouped_sdpa,
+        from physics_llm_inference.ops.gqa import (grouped_sdpa,
                                                        grouped_sdpa_bshd)
         b, sq, sk, hq, hkv, hd = 2, 8, 8, 4, 2, 16
         q = rand(b, sq, hq, hd, key=jax.random.PRNGKey(21))
@@ -264,17 +264,17 @@ class TestAttentionMemorySweep:
     of the longest attendable context under an HBM budget."""
 
     def test_max_attendable_flash_vs_naive(self):
-        from physics_llm_inference_tpu.ops.attention import \
+        from physics_llm_inference.ops.attention import \
             max_attendable_seq
 
-        budget = 16 << 30  # one v5e HBM
+        budget = 16 << 30  # 16 GiB of device memory
         naive = max_attendable_seq(budget, batch=1, heads=32, head_dim=128,
                                    flash=False)
         flash = max_attendable_seq(budget, batch=1, heads=32, head_dim=128,
                                    flash=True)
         # naive is quadratic (scores dominate); flash linear
         assert flash > 8 * naive
-        from physics_llm_inference_tpu.ops.attention import \
+        from physics_llm_inference.ops.attention import \
             attention_memory_bytes
         m = attention_memory_bytes(1, 32, naive, 128)
         assert m["total_bytes"] <= budget
@@ -282,7 +282,7 @@ class TestAttentionMemorySweep:
         assert m2["total_bytes"] > budget
 
     def test_device_probe_small(self):
-        from physics_llm_inference_tpu.ops.attention import \
+        from physics_llm_inference.ops.attention import \
             probe_attention_memory
 
         # tiny sweep on CPU: just proves the probe machinery runs and

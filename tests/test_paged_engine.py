@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import ModelConfig, init_params
-from physics_llm_inference_tpu.runtime import cached_generate
-from physics_llm_inference_tpu.serve import GenerationRequest
-from physics_llm_inference_tpu.serve.paged_engine import (
+from physics_llm_inference.models import ModelConfig, init_params
+from physics_llm_inference.runtime import cached_generate
+from physics_llm_inference.serve import GenerationRequest
+from physics_llm_inference.serve.paged_engine import (
     PagedEngineConfig, PagedInferenceEngine,
 )
 
@@ -98,7 +98,7 @@ class TestPagedInt8:
     def test_int8_pools_greedy_close(self, params):
         """kv_dtype='int8' builds QuantKV pools and generation stays close
         to the int8 dense-cache path."""
-        from physics_llm_inference_tpu.models.transformer import QuantKV
+        from physics_llm_inference.models.transformer import QuantKV
 
         prompt = [5, 17, 3, 42, 8]
         eng = engine(params, kv_dtype="int8")
@@ -206,37 +206,51 @@ def test_paged_warmup(params):
 
 
 class TestFusedGeometry:
-    def test_for_fused_preset_is_eligible(self, params):
-        from physics_llm_inference_tpu.kernels.fused_decode import \
-            fused_paged_decode_ok
-        from physics_llm_inference_tpu.models import ModelConfig
+    """PagedEngineConfig.for_context: the geometry `cli serve --paged`
+    derives from --slots and --max-seq-len."""
 
-        cfg7 = ModelConfig(vocab_size=32000, hidden_dim=4096, num_layers=32,
-                           num_heads=32, num_kv_heads=8,
-                           intermediate_dim=11008, max_seq_len=2048)
-        pc = PagedEngineConfig.for_fused(max_batch=64, max_seq_len=512)
-        assert fused_paged_decode_ok(cfg7, pc.max_batch,
-                                     pc.max_blocks_per_request,
-                                     pc.block_size)
-        assert pc.block_size * pc.max_blocks_per_request >= 512
+    def test_for_fused_preset_is_eligible(self, params):
+        pc = PagedEngineConfig.for_context(64, 2048)
+        assert pc.block_size == 128
+        assert pc.block_size * pc.max_blocks_per_request >= 2048
+        assert pc.num_blocks >= pc.max_batch * pc.max_blocks_per_request
 
     def test_for_fused_short_context_stays_lane_aligned(self):
-        # r4 regression: max_seq_len < 512 used to emit bs = seq//4 (e.g.
-        # 32), which fails the fused gate's bs % 128 == 0 and silently
-        # fell back to the per-op path from a constructor named for_fused
-        for s in (64, 128, 256, 512, 640, 1024, 2048):
-            pc = PagedEngineConfig.for_fused(max_seq_len=s)
-            assert pc.block_size % 128 == 0
-            assert pc.max_blocks_per_request <= 4
-            assert pc.block_size * pc.max_blocks_per_request >= s
+        # every context is covered; short ones take one power-of-two block
+        for s in (1, 5, 64, 100, 128, 640, 1000, 4096):
+            pc = PagedEngineConfig.for_context(8, s)
+            bs = pc.block_size
+            assert bs & (bs - 1) == 0 and bs <= 128
+            assert bs * pc.max_blocks_per_request >= s
+            assert bs * (pc.max_blocks_per_request - 1) < s
 
     def test_for_fused_preset_serves(self, params):
-        pc = PagedEngineConfig.for_fused(max_batch=8, max_seq_len=64,
-                                         prompt_buckets=(8, 16, 32),
-                                         enable_radix=False)
+        pc = PagedEngineConfig.for_context(8, 64, prompt_buckets=(8, 16, 32),
+                                           enable_radix=False)
         eng = PagedInferenceEngine(params, CFG, pc)
         res = eng.generate(GenerationRequest(prompt_tokens=[5, 17, 3],
                                              max_tokens=6, temperature=0.0))
-        from physics_llm_inference_tpu.runtime import cached_generate
         ref = cached_generate(params, CFG, [[5, 17, 3]], 6, temperature=0.0)
         np.testing.assert_array_equal(res.tokens, ref.tokens[0])
+
+
+class TestPagedKernelPath:
+    def test_int8_pools_through_kernel_match_xla(self, params,
+                                                 interpret_kernel):
+        """The paged engine with INT8 pools, decode attention through the
+        kernel (interpreted), stays close to the plain XLA path."""
+        import dataclasses
+
+        prompt = [int(x) for x in (np.arange(21) % 97) + 1]
+        out = {}
+        for impl in ("auto", "dense"):
+            cfg = dataclasses.replace(CFG, attention_impl=impl)
+            eng = PagedInferenceEngine(params, cfg, PagedEngineConfig(
+                num_blocks=32, block_size=8, max_batch=4,
+                max_blocks_per_request=8, prompt_buckets=(8, 16, 32),
+                kv_dtype="int8"))
+            out[impl] = eng.generate(GenerationRequest(
+                prompt_tokens=prompt, max_tokens=6, temperature=0.0)).tokens
+        agree = float(np.mean(np.asarray(out["auto"])
+                              == np.asarray(out["dense"])))
+        assert agree >= 0.8, out

@@ -7,14 +7,14 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from physics_llm_inference_tpu.models import (
+from physics_llm_inference.models import (
     ModelConfig, init_params, forward,
 )
-from physics_llm_inference_tpu.parallel import (
+from physics_llm_inference.parallel import (
     make_mesh, local_mesh_shape, tp_param_specs, tp_mlp_shardmap,
     compute_tp_memory_savings,
 )
-from physics_llm_inference_tpu.ops import swiglu
+from physics_llm_inference.ops import swiglu
 
 CFG = ModelConfig(vocab_size=128, hidden_dim=64, num_layers=2, num_heads=4,
                   num_kv_heads=2, intermediate_dim=128, max_seq_len=64,
@@ -129,9 +129,9 @@ class TestRingAttention:
                 jax.random.normal(ks[2], (2, hkv, s, d)))
 
     def test_matches_causal_reference(self):
-        from physics_llm_inference_tpu.parallel.ring_attention import (
+        from physics_llm_inference.parallel.ring_attention import (
             ring_attention)
-        from physics_llm_inference_tpu.ops import causal_attention
+        from physics_llm_inference.ops import causal_attention
 
         mesh = make_mesh(data=1, model=8)
         q, k, v = self._qkv()
@@ -143,9 +143,9 @@ class TestRingAttention:
                                    atol=1e-5)
 
     def test_noncausal(self):
-        from physics_llm_inference_tpu.parallel.ring_attention import (
+        from physics_llm_inference.parallel.ring_attention import (
             ring_attention)
-        from physics_llm_inference_tpu.ops import naive_attention
+        from physics_llm_inference.ops import naive_attention
 
         mesh = make_mesh(data=1, model=4)
         q, k, v = self._qkv(s=32, key=51)
@@ -157,7 +157,7 @@ class TestRingAttention:
 
 class TestScalingBench:
     def test_tp_decode_scaling_harness(self):
-        from physics_llm_inference_tpu.bench.scaling import (
+        from physics_llm_inference.bench.scaling import (
             measure_tp_decode, predict_scaling)
 
         out = measure_tp_decode(CFG, [1, 2, 4], batch=2, cache_len=16,
@@ -170,7 +170,7 @@ class TestScalingBench:
         assert pred[1]["comm_ms"] == 0.0 or pred[1]["efficiency"] == 1.0
 
     def test_pod_mesh_layout(self):
-        from physics_llm_inference_tpu.parallel.multihost import (
+        from physics_llm_inference.parallel.multihost import (
             initialize_multihost, pod_mesh, is_leader)
 
         info = initialize_multihost()

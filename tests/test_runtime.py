@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import ModelConfig, init_params
-from physics_llm_inference_tpu.runtime import (
+from physics_llm_inference.models import ModelConfig, init_params
+from physics_llm_inference.runtime import (
     KVCache, calculate_kv_cache_size,
     cached_generate, naive_generate, pad_and_stack,
     StepCache, bucket_for,

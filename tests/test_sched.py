@@ -5,9 +5,9 @@ chunk boundaries — plus the paths the reference never exercises: triggered
 preemption, radix refcounts + LRU eviction, prefix-sharing refcounts."""
 import pytest
 
-from physics_llm_inference_tpu.runtime.paged_kv import PagedKVCache
-from physics_llm_inference_tpu.runtime.radix_cache import RadixCache
-from physics_llm_inference_tpu.sched import (
+from physics_llm_inference.runtime.paged_kv import PagedKVCache
+from physics_llm_inference.runtime.radix_cache import RadixCache
+from physics_llm_inference.sched import (
     Request, RequestState,
     ContinuousBatcher, ContinuousBatcherConfig,
     StaticBatcher, analyze_static_batching_waste,

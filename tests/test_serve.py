@@ -9,10 +9,10 @@ import urllib.request
 import jax
 import pytest
 
-from physics_llm_inference_tpu.bench import (
+from physics_llm_inference.bench import (
     BenchmarkConfig, run_benchmark, percentile,
 )
-from physics_llm_inference_tpu.serve import (
+from physics_llm_inference.serve import (
     ChatCompletionRequest, ChatCompletionResponse, ChatCompletionChunk,
     TokenizerPool,
 )
@@ -106,9 +106,9 @@ class TestBenchHarness:
 
 @pytest.fixture(scope="module")
 def server():
-    from physics_llm_inference_tpu.models import ModelConfig, init_params
-    from physics_llm_inference_tpu.serve import InferenceEngine, EngineConfig
-    from physics_llm_inference_tpu.serve.http_server import InferenceServer
+    from physics_llm_inference.models import ModelConfig, init_params
+    from physics_llm_inference.serve import InferenceEngine, EngineConfig
+    from physics_llm_inference.serve.http_server import InferenceServer
 
     cfg = ModelConfig(vocab_size=256, hidden_dim=64, num_layers=2,
                       num_heads=4, num_kv_heads=2, intermediate_dim=128,
@@ -218,7 +218,7 @@ class TestRealTokenizerPool:
         path = str(tmp_path / "tok.json")
         tok.save(path)
 
-        from physics_llm_inference_tpu.serve.tokenizer_pool import \
+        from physics_llm_inference.serve.tokenizer_pool import \
             TokenizerPool
         pool = TokenizerPool(
             num_workers=2,
@@ -235,9 +235,9 @@ class TestRealTokenizerPool:
 def paged_server():
     """HTTP server over the PAGED engine (round-2 gap: the server was only
     ever tested with the slot engine)."""
-    from physics_llm_inference_tpu.models import ModelConfig, init_params
-    from physics_llm_inference_tpu.serve.http_server import InferenceServer
-    from physics_llm_inference_tpu.serve.paged_engine import (
+    from physics_llm_inference.models import ModelConfig, init_params
+    from physics_llm_inference.serve.http_server import InferenceServer
+    from physics_llm_inference.serve.paged_engine import (
         PagedEngineConfig, PagedInferenceEngine)
 
     cfg = ModelConfig(vocab_size=256, hidden_dim=64, num_layers=2,
@@ -280,12 +280,12 @@ class TestHTTPServerPagedEngine:
 class TestHTTPServerTP:
     def test_chat_completion_over_tp_mesh(self):
         """Server driving a TP-sharded slot engine on the virtual mesh."""
-        from physics_llm_inference_tpu.models import (ModelConfig,
+        from physics_llm_inference.models import (ModelConfig,
                                                       init_params)
-        from physics_llm_inference_tpu.parallel import make_mesh
-        from physics_llm_inference_tpu.serve import (EngineConfig,
+        from physics_llm_inference.parallel import make_mesh
+        from physics_llm_inference.serve import (EngineConfig,
                                                      InferenceEngine)
-        from physics_llm_inference_tpu.serve.http_server import \
+        from physics_llm_inference.serve.http_server import \
             InferenceServer
 
         cfg = ModelConfig(vocab_size=256, hidden_dim=64, num_layers=2,
@@ -309,15 +309,15 @@ class TestHTTPServerTP:
 
 class TestCLISharding:
     def test_serve_tp_check(self, capsys):
-        """`pli-tpu serve --tp 4 --dp 2 --check` builds the sharded engine
+        """`pli serve --tp 4 --dp 2 --check` builds the sharded engine
         + server on the virtual 8-device mesh and exits cleanly."""
-        from physics_llm_inference_tpu.cli import main
+        from physics_llm_inference.cli import main
 
         main(["serve", "--config", "toy", "--tp", "4", "--dp", "2",
               "--port", "0", "--check"])
 
     def test_serve_tp_too_many_devices(self):
-        from physics_llm_inference_tpu.cli import main
+        from physics_llm_inference.cli import main
 
         with pytest.raises(SystemExit):
             main(["serve", "--config", "toy", "--tp", "64", "--port", "0",
@@ -329,11 +329,11 @@ class TestWaitResult:
     alternative cost 32k GIL wakeups/s at the serving bench's concurrency."""
 
     def test_blocks_until_finish_and_times_out(self):
-        from physics_llm_inference_tpu.models import ModelConfig, init_params
-        from physics_llm_inference_tpu.serve import (EngineConfig,
+        from physics_llm_inference.models import ModelConfig, init_params
+        from physics_llm_inference.serve import (EngineConfig,
                                                      GenerationRequest,
                                                      InferenceEngine)
-        from physics_llm_inference_tpu.serve.http_server import ServingLoop
+        from physics_llm_inference.serve.http_server import ServingLoop
 
         cfg = ModelConfig(vocab_size=256, hidden_dim=64, num_layers=2,
                           num_heads=4, num_kv_heads=2, intermediate_dim=128,

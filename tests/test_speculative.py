@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from physics_llm_inference_tpu.models import ModelConfig, init_params
-from physics_llm_inference_tpu.runtime import (cached_generate,
+from physics_llm_inference.models import ModelConfig, init_params
+from physics_llm_inference.runtime import (cached_generate,
                                                ngram_propose,
                                                speculative_generate)
 
@@ -85,8 +85,8 @@ class TestEngineSpeculative:
     def _mk(self, spec_k=0):
         import jax
 
-        from physics_llm_inference_tpu.models import ModelConfig, init_params
-        from physics_llm_inference_tpu.serve.engine import (EngineConfig,
+        from physics_llm_inference.models import ModelConfig, init_params
+        from physics_llm_inference.serve.engine import (EngineConfig,
                                                             InferenceEngine)
 
         cfg = ModelConfig(vocab_size=64, hidden_dim=64, num_layers=2,
@@ -99,7 +99,7 @@ class TestEngineSpeculative:
         return eng
 
     def test_bit_identical_to_plain_engine(self):
-        from physics_llm_inference_tpu.serve.engine import GenerationRequest
+        from physics_llm_inference.serve.engine import GenerationRequest
 
         # repetitive prompt → drafts accept; varied prompt → drafts miss
         prompts = [[7, 8, 9, 7, 8, 9, 7, 8, 9, 7, 8],
@@ -122,7 +122,7 @@ class TestEngineSpeculative:
         assert st["tokens_per_dispatch"] > 1.0, st
 
     def test_sampled_requests_fall_back(self):
-        from physics_llm_inference_tpu.serve.engine import GenerationRequest
+        from physics_llm_inference.serve.engine import GenerationRequest
 
         spec = self._mk(4)
         spec.dispatch_trace = []

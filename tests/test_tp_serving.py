@@ -11,15 +11,15 @@ import jax
 import numpy as np
 import pytest
 
-from physics_llm_inference_tpu.models import (ModelConfig, init_params,
+from physics_llm_inference.models import (ModelConfig, init_params,
                                               quantize_params_int8)
-from physics_llm_inference_tpu.models.transformer import KVSlice, forward
-from physics_llm_inference_tpu.parallel import (make_mesh, tp_local_config,
+from physics_llm_inference.models.transformer import KVSlice, forward
+from physics_llm_inference.parallel import (make_mesh, tp_local_config,
                                                 tp_prepare_params)
-from physics_llm_inference_tpu.serve.engine import (EngineConfig,
+from physics_llm_inference.serve.engine import (EngineConfig,
                                                     GenerationRequest,
                                                     InferenceEngine)
-from physics_llm_inference_tpu.serve.paged_engine import (PagedEngineConfig,
+from physics_llm_inference.serve.paged_engine import (PagedEngineConfig,
                                                           PagedInferenceEngine)
 
 CFG = ModelConfig(vocab_size=256, hidden_dim=64, num_layers=2, num_heads=8,
@@ -46,7 +46,7 @@ class TestTPForward:
         """shard_map forward with tp hooks == plain forward (fp32 exact)."""
         from jax.sharding import PartitionSpec as P
 
-        from physics_llm_inference_tpu.parallel.tp import tp_param_spec_tree
+        from physics_llm_inference.parallel.tp import tp_param_spec_tree
 
         mesh = make_mesh(data=1, model=4)
         params = _params(False)
@@ -71,7 +71,7 @@ class TestTPForward:
         """Cached decode step under TP matches single-device numerics."""
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        from physics_llm_inference_tpu.parallel.tp import (tp_kv_spec,
+        from physics_llm_inference.parallel.tp import (tp_kv_spec,
                                                            tp_param_spec_tree)
 
         mesh = make_mesh(data=2, model=4)

@@ -4,9 +4,9 @@ import json
 
 import jax.numpy as jnp
 
-from physics_llm_inference_tpu.utils import benchmark_fn
-from physics_llm_inference_tpu.utils.logging import get_logger
-from physics_llm_inference_tpu.utils.profiling import (
+from physics_llm_inference.utils import benchmark_fn
+from physics_llm_inference.utils.logging import get_logger
+from physics_llm_inference.utils.profiling import (
     dispatch_overhead, fusion_benefit, device_memory_stats,
 )
 
