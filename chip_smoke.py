@@ -8,7 +8,8 @@ Phases (one process; the only child is nvidia-smi, which stays off JAX):
   device    devices, card name and power limit, XLA_FLAGS, JAX version,
             compile-cache directory; exits non-zero without a GPU
   kernels   the INT8 paged decode kernel compiled for the card at the 7B
-            widths, against its plain XLA reference, both timed; the rate of
+            widths: its error against the f32 reference, its time against
+            the plain XLA path the models take off the GPU; the rate of
             a large bf16 matmul and of a large device copy, for scale
   generate  runtime.cached_generate on the llama7b preset (INT8 weights,
             INT8 KV, random weights from a seed): batch 8, prompt 128,
@@ -154,10 +155,12 @@ def phase_kernels(layers_per_step: int = 32):
     import jax.numpy as jnp
 
     from physics_llm_inference.kernels.decode_attention import (
-        int8_paged_decode_attention, int8_paged_decode_attention_xla)
+        int8_paged_decode_attention, int8_paged_decode_attention_reference,
+        int8_paged_decode_attention_xla)
 
     kernel = jax.jit(partial(int8_paged_decode_attention, interpret=False))
     plain = jax.jit(int8_paged_decode_attention_xla)
+    reference = jax.jit(int8_paged_decode_attention_reference)
     key = jax.random.PRNGKey(SEED)
     for hkv in (32, 8):
         for ctx in (1024, 4096):
@@ -170,14 +173,15 @@ def phase_kernels(layers_per_step: int = 32):
             t0 = time.perf_counter()
             got = jax.block_until_ready(kernel(*args))
             compile_s = time.perf_counter() - t0
-            with jax.default_matmul_precision("highest"):
-                ref = jax.block_until_ready(plain(*args))
+            ref = jax.block_until_ready(reference(*args))
             err = float(jnp.max(jnp.abs(got.astype(jnp.float32)
                                         - ref.astype(jnp.float32))))
             if not (np.isfinite(err) and err <= KERNEL_TOL):
                 raise AssertionError(
                     f"decode kernel hkv={hkv} ctx={ctx}: max|err| {err} > "
                     f"{KERNEL_TOL}")
+            xla_err = float(jnp.max(jnp.abs(
+                plain(*args).astype(jnp.float32) - ref.astype(jnp.float32))))
             tk = per_call_seconds(kernel, args)
             tx = per_call_seconds(plain, args)
             log(f"[kernels] int8 paged decode B=8 Hq=32 Hkv={hkv} d=128 "
@@ -185,7 +189,8 @@ def phase_kernels(layers_per_step: int = 32):
                 f"us, XLA {tx*1e6:.1f} us per layer; x{layers_per_step} "
                 f"layers: kernel {tk*layers_per_step*1e3:.3f} ms, XLA "
                 f"{tx*layers_per_step*1e3:.3f} ms per decode step; max|err| "
-                f"{err:.3e} (tol {KERNEL_TOL}); first call {compile_s:.1f} s")
+                f"{err:.3e} (tol {KERNEL_TOL}; XLA path {xla_err:.3e}); first "
+                f"call {compile_s:.1f} s")
 
     n = 8192
     a = jax.random.normal(key, (n, n), jnp.bfloat16)
@@ -212,7 +217,7 @@ def check_band(params, cfg, seqs):
 
     from physics_llm_inference.models import forward
 
-    ref_cfg = dataclasses.replace(cfg, dtype="float32", attention_impl="dense")
+    ref_cfg = dataclasses.replace(cfg, dtype="float32")
     length = max(len(p) + len(g) for p, g in seqs)
     length = -(-length // 64) * 64     # one compile for every run's shapes
     ids = np.zeros((len(seqs), length), np.int32)   # right padding: causal
@@ -266,6 +271,7 @@ def phase_generate(params, cfg):
     from physics_llm_inference.runtime import KVCache, cached_generate
     from physics_llm_inference.runtime.generate import (_decode_jit,
                                                         _prefill_jit,
+                                                        cache_len,
                                                         pad_and_stack)
 
     b, p, n = 8, 128, 64
@@ -274,7 +280,7 @@ def phase_generate(params, cfg):
 
     # compile both programs explicitly, for their compile time and memory
     ids, lens = pad_and_stack(prompts)
-    cache = KVCache.create(cfg, b, p + n, dtype=jnp.int8).as_slice()
+    cache = KVCache.create(cfg, b, cache_len(p, n), dtype=jnp.int8).as_slice()
     f32, i32 = jnp.float32(0), jnp.zeros((b,), jnp.int32)
     lowered = {
         "prefill": _prefill_jit.lower(params, cfg, ids, lens, cache),

@@ -74,6 +74,11 @@ def cmd_serve(args):
     from .serve import EngineConfig, InferenceEngine
     from .serve.http_server import InferenceServer
 
+    if args.tp > 1 and jax.default_backend() == "gpu":
+        # scripts/tp_check.py reproduces the fault on four GPUs
+        raise SystemExit("--tp > 1 is refused on GPUs: the tensor-parallel "
+                         "engines emit wrong tokens there (ROADMAP.md, item "
+                         "0). Serve on one GPU.")
     params, cfg = _load_model(args)
     kv_dtype = "int8" if args.int8 else None
     mesh = None

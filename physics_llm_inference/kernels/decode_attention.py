@@ -6,9 +6,10 @@ engine's per-request cache viewed as pages (a slot is a run of contiguous
 pages). The Pallas kernel (Triton route) reads only the live pages of each
 request, dequantizes K and V in registers and runs an online softmax, so the
 cache crosses device memory once at 1 byte per element. The plain XLA
-version gathers the pages into a contiguous copy, dequantizes it to f32 and
-attends; it is the reference the kernel is tested against, and the path on
-devices the kernel does not target.
+version (the path on devices the kernel does not target) gathers the pages
+into a contiguous copy, dequantizes it to the compute dtype and attends with
+default matmul precision. The reference the kernel is tested against
+dequantizes exactly and attends in f32 at the highest matmul precision.
 
 Layouts (token-major, as written by the model):
   values  (L, P, T, Hkv·d) int8   — P pages of T tokens, heads flat
@@ -31,7 +32,7 @@ from jax.experimental.pallas import triton as plgpu
 # split a request's context until ~1024 programs are in flight (~8 per SM),
 # but keep at least 4 loop iterations per split so the merge stays small.
 _NEG = -1e30          # finite: exp(_NEG - _NEG) stays 1, never NaN
-_TOKENS_PER_STEP = 128  # tokens one loop iteration loads per (request, head)
+TOKENS_PER_STEP = 128  # tokens one loop iteration loads per (request, head)
 _TARGET_PROGRAMS = 1024
 _MIN_STEPS_PER_SPLIT = 4
 _NUM_WARPS = 4
@@ -39,11 +40,11 @@ _NUM_STAGES = 2
 _ELEMENTWISE_MAX_GROUP = 1  # query heads per KV head scored without pl.dot
 
 
-def use_decode_kernel(attention_impl: str) -> bool:
-    """Kernel or XLA, decided at trace time from the device: the Triton
-    kernel on a GPU, the plain XLA path elsewhere or when the model config
-    asks for plain attention (attention_impl="dense")."""
-    return attention_impl != "dense" and jax.default_backend() == "gpu"
+def use_decode_kernel() -> bool:
+    """Kernel or XLA, decided at trace time from the device alone: the
+    Triton kernel on a GPU, the plain XLA path elsewhere. The models call
+    it through this module, so one patch of it switches every path."""
+    return jax.default_backend() == "gpu"
 
 
 def _pow2_divisor(n: int, cap: int) -> int:
@@ -129,7 +130,7 @@ def int8_paged_decode_attention(q, k_q, k_s, v_q, v_s, k_pages, v_pages,
 
     # normalize the page size to a power of two <= the step's token count
     # (a free reshape of the pool; each table entry fans out to r sub-pages)
-    tp = _pow2_divisor(T, _TOKENS_PER_STEP)
+    tp = _pow2_divisor(T, TOKENS_PER_STEP)
     r = T // tp
     if r > 1:
         k_q, v_q = (a.reshape(L, P * r, tp, F) for a in (k_q, v_q))
@@ -137,7 +138,7 @@ def int8_paged_decode_attention(q, k_q, k_s, v_q, v_s, k_pages, v_pages,
         sub = jnp.arange(r, dtype=jnp.int32)
         k_pages, v_pages = ((t[:, :, None] * r + sub).reshape(b, -1)
                             for t in (k_pages, v_pages))
-    ppi = _TOKENS_PER_STEP // tp
+    ppi = TOKENS_PER_STEP // tp
     n_pages = k_pages.shape[1]
     chunks = -(-n_pages // ppi)
     splits = 1
@@ -199,9 +200,10 @@ def int8_paged_decode_attention(q, k_q, k_s, v_q, v_s, k_pages, v_pages,
 
 
 def decode_attention_reference(q, k, v, lo, hi):
-    """Plain XLA decode attention in f32. q: (B, Hq, d); k, v: (B, S, Hkv, d)
-    already dequantized; position s is attended iff lo[b] <= s < hi[b].
-    Rows with no attended position return zeros, as the kernel does."""
+    """Reference decode attention in f32 at the highest matmul precision
+    (no TF32). q: (B, Hq, d); k, v: (B, S, Hkv, d) already dequantized;
+    position s is attended iff lo[b] <= s < hi[b]. Rows with no attended
+    position return zeros, as the kernel does."""
     b, hq, d = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     qg = q.astype(jnp.float32).reshape(b, hkv, hq // hkv, d)
@@ -219,24 +221,41 @@ def decode_attention_reference(q, k, v, lo, hi):
     return out.reshape(b, hq, d).astype(q.dtype)
 
 
+def decode_attention_xla(q, k, v, lo, hi):
+    """Plain XLA decode attention as the models serve it: k, v in the
+    compute dtype, matmuls at default precision with f32 accumulation and
+    an f32 softmax (ops/gqa.py, the slot path's attention). Same arguments
+    and empty-row zeros as decode_attention_reference."""
+    from ..ops.gqa import grouped_sdpa_bshd
+
+    b, hq, d = q.shape
+    pos = jnp.arange(k.shape[1])
+    live = (pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None])
+    out = grouped_sdpa_bshd(q[:, None], k, v,
+                            mask=live[:, None, None, None, :])
+    out = jnp.where(jnp.any(live, -1)[:, None, None], out, 0)
+    return out.reshape(b, hq, d)
+
+
 def gather_pages(pool, pages):
     """(P, T, ...) pool rows gathered by (B, N) page ids → (B, N·T, ...)."""
     g = pool[pages]
     return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
 
 
-def dequant_pages(values, scales, pages, hkv: int):
+def dequant_pages(values, scales, pages, hkv: int, dtype=jnp.float32):
     """Gather one layer's int8 pages (P, T, Hkv·d) + scales (P, T, Hkv) by
-    (B, N) page ids and dequantize exactly → (B, N·T, Hkv, d) f32."""
+    (B, N) page ids and dequantize → (B, N·T, Hkv, d) in `dtype` (the
+    product is formed in f32)."""
     vals = gather_pages(values, pages)
     vals = vals.reshape(*vals.shape[:2], hkv, -1).astype(jnp.float32)
-    return vals * gather_pages(scales, pages)[..., None]
+    return (vals * gather_pages(scales, pages)[..., None]).astype(dtype)
 
 
-def int8_paged_decode_attention_xla(q, k_q, k_s, v_q, v_s, k_pages, v_pages,
-                                    lo, hi, layer):
-    """The plain XLA path with the kernel's signature: gather this layer's
-    live pages, dequantize, attend (decode_attention_reference)."""
+def int8_paged_decode_attention_reference(q, k_q, k_s, v_q, v_s, k_pages,
+                                          v_pages, lo, hi, layer):
+    """The test reference with the kernel's signature: gather this layer's
+    pages, dequantize exactly, attend in f32 (decode_attention_reference)."""
     hkv = k_s.shape[-1]
     lv = lambda a: lax.dynamic_index_in_dim(a, layer, 0, keepdims=False)
     k = dequant_pages(lv(k_q), lv(k_s), k_pages, hkv)
@@ -244,13 +263,24 @@ def int8_paged_decode_attention_xla(q, k_q, k_s, v_q, v_s, k_pages, v_pages,
     return decode_attention_reference(q, k, v, lo, hi)
 
 
+def int8_paged_decode_attention_xla(q, k_q, k_s, v_q, v_s, k_pages, v_pages,
+                                    lo, hi, layer):
+    """The plain XLA path with the kernel's signature: gather this layer's
+    pages, dequantize to q's dtype, attend (decode_attention_xla)."""
+    hkv = k_s.shape[-1]
+    lv = lambda a: lax.dynamic_index_in_dim(a, layer, 0, keepdims=False)
+    k = dequant_pages(lv(k_q), lv(k_s), k_pages, hkv, q.dtype)
+    v = dequant_pages(lv(v_q), lv(v_s), v_pages, hkv, q.dtype)
+    return decode_attention_xla(q, k, v, lo, hi)
+
+
 def int8_decode_attention(q, k_q, k_s, v_q, v_s, k_pages, v_pages, lo, hi,
-                          layer, *, attention_impl: str = "auto"):
+                          layer):
     """Entry the paged model calls: the kernel where use_decode_kernel says
     so, otherwise the plain XLA path. Same arguments as the kernel. (The
     slot cache's XLA path differs, a contiguous dequantize-and-attend, so
     models/transformer.block_forward asks use_decode_kernel itself.)"""
-    if use_decode_kernel(attention_impl):
+    if use_decode_kernel():
         return int8_paged_decode_attention(q, k_q, k_s, v_q, v_s, k_pages,
                                            v_pages, lo, hi, layer,
                                            interpret=False)
@@ -262,7 +292,7 @@ def slot_pages(batch: int, seq: int):
     """View a slot cache (L, B, S, ...) as pages: (page size T, (B, S/T)
     page table) with T the largest power of two dividing S, capped at one
     kernel step. The pool reshape (L, B·S/T, T, ...) is free."""
-    t = _pow2_divisor(seq, _TOKENS_PER_STEP)
+    t = _pow2_divisor(seq, TOKENS_PER_STEP)
     n = seq // t
     table = (jnp.arange(batch, dtype=jnp.int32)[:, None] * n
              + jnp.arange(n, dtype=jnp.int32)[None, :])

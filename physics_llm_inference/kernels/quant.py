@@ -6,8 +6,8 @@ s = absmax/127 along the reduction-invariant axis (per output channel for
 weights, per head for KV) — the standard recipe that holds the 0.1-perplexity
 budget without calibration data.
 
-Pure-JAX ops (XLA fuses them into neighbors); the fused *consumers* (dequant
-inside matmul/attention tiles) live in int8_matmul.py / flash_attention.py.
+Pure-JAX ops (XLA fuses them into neighbors); the consumer that dequantizes
+inside its tiles is the decode attention kernel (decode_attention.py).
 """
 from __future__ import annotations
 

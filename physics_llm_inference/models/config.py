@@ -27,11 +27,6 @@ class ModelConfig:
     max_seq_len: int = 4096
     # dtypes as strings to keep the config hashable/static under jit.
     dtype: str = "bfloat16"
-    # Attention implementation: "auto" runs INT8-KV decode attention through
-    # the GPU kernel when the device is a GPU (kernels/decode_attention.py)
-    # and everything else as plain XLA; "dense" keeps every attention in
-    # plain XLA (the kernel's comparison path).
-    attention_impl: str = "auto"
     # Unroll the layer loop for decode-shaped (s == 1) cached calls:
     # trades HLO size (L× the block body) for no per-iteration loop
     # bookkeeping around a small layer. Prefill keeps the scan.
@@ -54,7 +49,6 @@ class ModelConfig:
     head_dim_override: int | None = None
 
     def __post_init__(self):
-        assert self.attention_impl in ("auto", "dense"), self.attention_impl
         if self.head_dim_override is None:
             assert self.hidden_dim % self.num_heads == 0
         assert self.num_heads % self.num_kv_heads == 0

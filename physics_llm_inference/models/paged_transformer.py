@@ -18,9 +18,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from ..kernels.decode_attention import (decode_attention_reference,
-                                        dequant_pages, gather_pages,
-                                        int8_decode_attention)
+from ..kernels.decode_attention import (decode_attention_xla, dequant_pages,
+                                        gather_pages, int8_decode_attention)
 from ..kernels.quant import quantize_int8
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
@@ -42,15 +41,13 @@ def _merged_pages(kv_pools: QuantKV):
                  for a in kv_pools)
 
 
-def _paged_int8_attention(q, kv_pools: QuantKV, tables, lengths, layer,
-                          cfg: ModelConfig):
+def _paged_int8_attention(q, kv_pools: QuantKV, tables, lengths, layer):
     """Decode attention over merged int8 pools for (B, Hq, d) queries whose
     tokens [0, lengths) live in the blocks of `tables`."""
     kv, kvs = _merged_pages(kv_pools)
     return int8_decode_attention(q, kv, kvs, kv, kvs, 2 * tables,
                                  2 * tables + 1, jnp.zeros_like(lengths),
-                                 lengths, layer,
-                                 attention_impl=cfg.attention_impl)
+                                 lengths, layer)
 
 
 def _paged_decode_step_impl(params, tokens: jnp.ndarray,
@@ -108,14 +105,14 @@ def _paged_decode_step_impl(params, tokens: jnp.ndarray,
                     ksc[..., 0]).at[l, block_ids, 1, offsets].set(
                     vsc[..., 0]))
             attn = _paged_int8_attention(q[:, 0], k_pools, tables,
-                                         lengths + 1, l, cfg)
+                                         lengths + 1, l)
         else:
             k_pools = k_pools.at[l, block_ids, offsets].set(
                 k[:, 0].astype(k_pools.dtype))
             v_pools = v_pools.at[l, block_ids, offsets].set(
                 v[:, 0].astype(v_pools.dtype))
             lv = lambda a: lax.dynamic_index_in_dim(a, l, 0, keepdims=False)
-            attn = decode_attention_reference(
+            attn = decode_attention_xla(
                 q[:, 0], gather_pages(lv(k_pools), tables),
                 gather_pages(lv(v_pools), tables),
                 jnp.zeros_like(lengths), lengths + 1)
@@ -248,8 +245,8 @@ def paged_prefill_chunk_impl(params, ids: jnp.ndarray,
                 .at[l, blk, 1, off].set(vsc[..., 0], mode="drop"))
             kv, kvs = (lax.dynamic_index_in_dim(a, l, 0, keepdims=False)
                        for a in _merged_pages(k_pools))
-            k_seq = dequant_pages(kv, kvs, 2 * table, hkv)
-            v_seq = dequant_pages(kv, kvs, 2 * table + 1, hkv)
+            k_seq = dequant_pages(kv, kvs, 2 * table, hkv, q.dtype)
+            v_seq = dequant_pages(kv, kvs, 2 * table + 1, hkv, q.dtype)
         else:
             k_pools = k_pools.at[l, blk, off].set(
                 k.reshape(R * c, hkv, hd).astype(k_pools.dtype),

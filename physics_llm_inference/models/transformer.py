@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from ..kernels.decode_attention import use_decode_kernel
+from ..kernels import decode_attention
 from ..ops.gqa import grouped_sdpa
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
@@ -389,7 +389,7 @@ def block_forward(
         new_kv = (k_cache, v_cache)
 
         if (s == 1 and isinstance(k_cache, QuantKV)
-                and use_decode_kernel(cfg.attention_impl)):
+                and decode_attention.use_decode_kernel()):
             # INT8-KV decode: the kernel reads the int8 cache once and
             # dequantizes in registers, where the XLA path below writes and
             # re-reads a dequantized copy of the whole layer cache
@@ -444,19 +444,16 @@ def _slot_decode_attention(q, k_cache: QuantKV, v_cache: QuantKV, q_slot,
     """Decode attention over the stacked int8 slot cache (L, B, S, ...)
     through the paged kernel: each slot is viewed as a run of contiguous
     pages, and the request's window is [valid_from, q_slot]."""
-    from ..kernels.decode_attention import (int8_paged_decode_attention,
-                                            slot_pages)
-
     kq, ks, vq, vs = k_cache.q, k_cache.s, v_cache.q, v_cache.s
     if layer is None:  # one layer's (B, S, ...) cache
         kq, ks, vq, vs = (a[None] for a in (kq, ks, vq, vs))
         layer = 0
     L, b, seq = kq.shape[:3]
-    t, table = slot_pages(b, seq)
+    t, table = decode_attention.slot_pages(b, seq)
     view = lambda a: a.reshape(L, b * seq // t, t, a.shape[-1])
     lo = (jnp.zeros((b,), jnp.int32) if valid_from is None
           else valid_from.astype(jnp.int32))
-    return int8_paged_decode_attention(
+    return decode_attention.int8_paged_decode_attention(
         q, view(kq), view(ks), view(vq), view(vs), table, table, lo,
         q_slot.astype(jnp.int32) + 1, layer, interpret=False)
 

@@ -47,8 +47,8 @@ def grouped_sdpa_bshd(q, k, v, mask=None, scale=None):
     Same math as grouped_sdpa — softmax in f32, mask True = attend,
     broadcastable to (B, 1, 1, Sq, Sk) against scores (B, Hkv, G, Sq, Sk).
 
-    The model attends through grouped_sdpa; this layout variant is kept
-    as a tested alternative.
+    The plain XLA decode path over gathered pages
+    (kernels/decode_attention.decode_attention_xla) attends through it.
     """
     b, sq, hq, d = q.shape
     hkv = k.shape[2]

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..kernels.decode_attention import TOKENS_PER_STEP
 from ..models.config import ModelConfig
 from ..models.transformer import KVSlice, forward
 from ..ops.sampling import sample_token
@@ -152,6 +153,15 @@ def _decode_jit(params, cfg, kv, first_token, lens, valid_from, rng,
 _prefill_jit = jax.jit(_prefill, static_argnames=("cfg",))
 
 
+def cache_len(prompt_len: int, max_new_tokens: int) -> int:
+    """Slot-cache length for a generation: prompt plus new tokens, rounded
+    up to whole decode-kernel pages (the kernel views a slot as pages of the
+    largest power of two <= TOKENS_PER_STEP dividing the length; the mask
+    keeps the extra slots out of attention)."""
+    step = TOKENS_PER_STEP
+    return -(-(prompt_len + max_new_tokens) // step) * step
+
+
 def cached_generate(
     params,
     cfg: ModelConfig,
@@ -174,7 +184,8 @@ def cached_generate(
     rng = rng if rng is not None else jax.random.PRNGKey(0)
     ids, lens = pad_and_stack(prompts, pad_id=pad_id, bucket=prompt_bucket)
     b, p = ids.shape
-    cache = KVCache.create(cfg, b, p + max_new_tokens, dtype=kv_dtype)
+    cache = KVCache.create(cfg, b, cache_len(p, max_new_tokens),
+                           dtype=kv_dtype)
 
     from ..utils.timing import timed
 

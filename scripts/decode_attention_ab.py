@@ -3,8 +3,9 @@ XLA path, per decode step of the engines, on the llama7b preset (INT8
 weights and KV, random weights from a seed).
 
 For each geometry the same decode program is built twice, once with the
-kernel (attention_impl="auto") and once with plain XLA
-(attention_impl="dense"), and run in turns kernel, XLA, XLA, kernel:
+kernel and once with the plain XLA path the models take off the GPU
+(kernels/decode_attention.use_decode_kernel patched here, compiled programs
+cleared at each switch), and run in turns kernel, XLA, XLA, kernel:
 
   slot   runtime.cached_generate (the bench/generate path): B=8, prompt
          128 + 64 new tokens (chip_smoke's geometry), and prompt 2048 +
@@ -21,7 +22,6 @@ the top kernels of one cached_generate decode.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import glob
 import json
 import shutil
@@ -37,8 +37,22 @@ import jax.numpy as jnp
 import numpy as np
 
 SEED = 0
+ORDER = (True, False, False, True)   # kernel, XLA, XLA, kernel
 # profiler traces go inside the checkout (git-ignored), and are removed
 TRACE_DIR = Path(__file__).resolve().parents[1] / "chiprun_out" / "traces"
+
+
+def use_kernel(on: bool):
+    """Route the models' INT8 decode attention through the kernel (on) or
+    the plain XLA path, and drop compiled programs of the other path."""
+    from physics_llm_inference.kernels import decode_attention
+
+    decode_attention.use_decode_kernel = lambda: on
+    jax.clear_caches()
+
+
+def path(on: bool) -> str:
+    return "kernel" if on else "xla"
 
 
 def slot_runs(params, cfg, prompt, new):
@@ -48,13 +62,13 @@ def slot_runs(params, cfg, prompt, new):
     prompts = [list(rng.integers(1, cfg.vocab_size, prompt))
                for _ in range(8)]
     out = {}
-    for impl in ("auto", "dense", "dense", "auto"):
-        c = dataclasses.replace(cfg, attention_impl=impl)
-        cached_generate(params, c, prompts, new, temperature=0.0,
+    for on in ORDER:
+        use_kernel(on)
+        cached_generate(params, cfg, prompts, new, temperature=0.0,
                         kv_dtype=jnp.int8)                      # compile
-        r = cached_generate(params, c, prompts, new, temperature=0.0,
+        r = cached_generate(params, cfg, prompts, new, temperature=0.0,
                             kv_dtype=jnp.int8)
-        out.setdefault(impl, []).append(r.decode_s / new * 1e3)
+        out.setdefault(path(on), []).append(r.decode_s / new * 1e3)
     return out
 
 
@@ -76,10 +90,10 @@ def paged_runs(params, cfg, ctx, horizon=8, reps=5):
     perm = np.random.default_rng(SEED).permutation(nb - 1)[:b * mb]
     tables = jnp.asarray(perm.reshape(b, mb), jnp.int32)
     out = {}
-    for impl in ("auto", "dense", "dense", "auto"):
-        c = dataclasses.replace(cfg, attention_impl=impl)
+    for on in ORDER:
+        use_kernel(on)
         lengths = jnp.full((b,), ctx, jnp.int32)
-        step = partial(paged_decode_scan, cfg=c, horizon=horizon,
+        step = partial(paged_decode_scan, cfg=cfg, horizon=horizon,
                        filtered=False)
         args = lambda lens: (params, jnp.ones((b,), jnp.int32), pools, None,
                              tables, lens, jax.random.PRNGKey(1),
@@ -94,7 +108,7 @@ def paged_runs(params, cfg, ctx, horizon=8, reps=5):
             toks, pools, _ = step(*args(lengths))
             jax.block_until_ready(toks)
             ts.append((time.perf_counter() - t0) / horizon * 1e3)
-        out.setdefault(impl, []).append(float(np.median(ts)))
+        out.setdefault(path(on), []).append(float(np.median(ts)))
     return out
 
 
@@ -196,6 +210,7 @@ def main():
               "layer": layer_device_times()}
     cfg = LLAMA_7B_CONFIG
     params = init_params_int8(jax.random.PRNGKey(SEED), cfg)
+    use_kernel(True)
     result["decode_breakdown"] = decode_breakdown(params, cfg)
     for name, fn in (("slot ctx 192", lambda: slot_runs(params, cfg, 128, 64)),
                      ("paged ctx 192", lambda: paged_runs(params, cfg, 192)),
@@ -206,8 +221,8 @@ def main():
         t0 = time.perf_counter()
         r = fn()
         result[name] = r
-        print(f"[ab] {name}: ms per decode step, kernel {r['auto']} | XLA "
-              f"{r['dense']} ({time.perf_counter() - t0:.0f} s)", flush=True)
+        print(f"[ab] {name}: ms per decode step, kernel {r['kernel']} | XLA "
+              f"{r['xla']} ({time.perf_counter() - t0:.0f} s)", flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
 

@@ -66,21 +66,23 @@ def gpu():
 
 @pytest.fixture
 def interpret_kernel(monkeypatch):
-    """Route the models' INT8 decode attention through the GPU kernel,
-    run in the Pallas interpreter: the kernel path of the model code, on
-    the CPU. Compiled programs are cleared so no earlier trace is reused."""
+    """Route the models' INT8 decode attention through the GPU kernel, run
+    in the Pallas interpreter: the kernel path of the model code, on the
+    CPU. Yields use_kernel(on): on=False switches back to the plain XLA
+    path. Compiled programs are cleared at each switch so no trace of the
+    other path is reused."""
     from physics_llm_inference.kernels import decode_attention as da
-    from physics_llm_inference.models import transformer
 
     kernel = da.int8_paged_decode_attention
 
     def interpreted(*args, interpret):
         return kernel(*args, interpret=True)
 
-    use = lambda impl: impl != "dense"
+    def use_kernel(on: bool):
+        monkeypatch.setattr(da, "use_decode_kernel", lambda: on)
+        jax.clear_caches()
+
     monkeypatch.setattr(da, "int8_paged_decode_attention", interpreted)
-    monkeypatch.setattr(da, "use_decode_kernel", use)
-    monkeypatch.setattr(transformer, "use_decode_kernel", use)
-    jax.clear_caches()
-    yield
+    use_kernel(True)
+    yield use_kernel
     jax.clear_caches()

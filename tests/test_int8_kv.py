@@ -84,12 +84,7 @@ def test_int8_kv_decode_steps_consistent():
 
 class TestFlashModelPath:
     """The models' kernel path (the INT8 decode kernel, interpreted) must
-    match the plain XLA path (attention_impl="dense") on the slot cache."""
-
-    DENSE = ModelConfig(vocab_size=100, hidden_dim=64, num_layers=2,
-                        num_heads=4, num_kv_heads=2, intermediate_dim=128,
-                        max_seq_len=128, dtype="float32",
-                        attention_impl="dense")
+    match the plain XLA path on the slot cache."""
 
     def test_uncached_forward_matches_dense(self, interpret_kernel):
         """A cached decode step (left-padded batch, per-request window)
@@ -97,7 +92,9 @@ class TestFlashModelPath:
         params = init_params(jax.random.PRNGKey(0), CFG)
         ids = (jnp.arange(16).reshape(2, 8) * 5) % 100
         out = {}
-        for name, cfg in (("kernel", CFG), ("dense", self.DENSE)):
+        for name, on in (("kernel", True), ("dense", False)):
+            interpret_kernel(on)
+            cfg = CFG
             cache = KVCache.create(cfg, 2, 12, dtype=jnp.int8)
             slots = jnp.broadcast_to(jnp.arange(8), (2, 8))
             vf = jnp.asarray([0, 3], jnp.int32)
@@ -114,8 +111,10 @@ class TestFlashModelPath:
         generation stay within bf16 rounding of the dense path's."""
         params = init_params(jax.random.PRNGKey(0), CFG)
         prompts = [[5, 17, 3, 42, 8], [7, 1]]
-        d = cached_generate(params, self.DENSE, prompts, 6, temperature=0.0,
+        interpret_kernel(False)
+        d = cached_generate(params, CFG, prompts, 6, temperature=0.0,
                             kv_dtype=jnp.int8)
+        interpret_kernel(True)
         k = cached_generate(params, CFG, prompts, 6, temperature=0.0,
                             kv_dtype=jnp.int8)
         agree = float(np.mean(d.tokens == k.tokens))

@@ -10,7 +10,8 @@ import pytest
 
 from physics_llm_inference.kernels import quantize_int8, dequantize_int8
 from physics_llm_inference.kernels.decode_attention import (
-    int8_paged_decode_attention, int8_paged_decode_attention_xla,
+    TOKENS_PER_STEP, int8_paged_decode_attention,
+    int8_paged_decode_attention_reference, int8_paged_decode_attention_xla,
     slot_pages, use_decode_kernel)
 from physics_llm_inference.kernels.quant import quantization_error
 from physics_llm_inference.models.quant import QuantizedTensor
@@ -193,7 +194,7 @@ class TestDecodeKernel:
             got = int8_paged_decode_attention(
                 q, kq, ks, vq, vs, kp, vp, lo, hi, jnp.int32(layer),
                 interpret=True)
-            ref = int8_paged_decode_attention_xla(
+            ref = int8_paged_decode_attention_reference(
                 q, kq, ks, vq, vs, kp, vp, lo, hi, jnp.int32(layer))
             assert got.shape == q.shape
             np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
@@ -247,13 +248,62 @@ class TestDecodeKernel:
 class TestKernelChoice:
     def test_cpu_takes_xla(self):
         assert jax.default_backend() == "cpu"
-        assert not use_decode_kernel("auto")
-        assert not use_decode_kernel("dense")
+        assert not use_decode_kernel()
 
     def test_gpu_takes_kernel_unless_dense(self, monkeypatch):
         monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
-        assert use_decode_kernel("auto")
-        assert not use_decode_kernel("dense")
+        assert use_decode_kernel()
+
+    def test_tp_serving_refused_on_gpu(self, monkeypatch):
+        """`cli serve --tp N` stops before loading a model on a GPU, where
+        the tensor-parallel engines emit wrong tokens (ROADMAP item 0)."""
+        from physics_llm_inference import cli
+        from physics_llm_inference.utils import compile_cache
+
+        monkeypatch.setattr(compile_cache, "enable_compile_cache", lambda: "")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        monkeypatch.setattr(cli, "_load_model", lambda args: pytest.fail(
+            "model loaded before the --tp check"))
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            cli.main(["serve", "--tp", "2", "--config", "toy", "--check"])
+
+
+class TestXlaDecodePath:
+    """The plain XLA path the models serve off the GPU: dequantize to the
+    compute dtype, default matmul precision, f32 softmax."""
+
+    def test_bf16_path_matches_reference(self):
+        rng = np.random.default_rng(3)
+        q, kq, ks, vq, vs, kp, vp = _decode_case(rng)
+        q = q.astype(jnp.bfloat16)
+        lo = jnp.asarray([0, 5, 0], jnp.int32)
+        hi = jnp.asarray([96, 40, 1], jnp.int32)
+        for layer in (0, 1):
+            args = (q, kq, ks, vq, vs, kp, vp, lo, hi, jnp.int32(layer))
+            got = int8_paged_decode_attention_xla(*args)
+            ref = int8_paged_decode_attention_reference(*args)
+            assert got.dtype == jnp.bfloat16 and got.shape == q.shape
+            np.testing.assert_allclose(np.asarray(got, np.float32),
+                                       np.asarray(ref, np.float32), atol=_TOL)
+
+    def test_empty_window_is_zero(self):
+        rng = np.random.default_rng(4)
+        q, kq, ks, vq, vs, kp, vp = _decode_case(rng)
+        lo = jnp.asarray([0, 9, 3], jnp.int32)
+        hi = jnp.asarray([20, 9, 3], jnp.int32)       # rows 1, 2 empty
+        out = int8_paged_decode_attention_xla(q, kq, ks, vq, vs, kp, vp, lo,
+                                              hi, jnp.int32(0))
+        assert bool(jnp.all(out[1:] == 0)) and bool(jnp.any(out[0] != 0))
+
+    @pytest.mark.parametrize("prompt,new,length", [
+        (128, 64, 256), (5, 6, 128), (2048, 32, 2176), (128, 128, 256)])
+    def test_slot_cache_is_whole_kernel_pages(self, prompt, new, length):
+        from physics_llm_inference.runtime.generate import cache_len
+
+        assert cache_len(prompt, new) == length
+        page, table = slot_pages(2, length)
+        assert page == TOKENS_PER_STEP
+        assert table.shape == (2, length // TOKENS_PER_STEP)
 
 
 class TestCompileCache:
@@ -333,6 +383,6 @@ def test_compiled_kernel_matches_reference(gpu):
     hi = jnp.asarray([96, 50, 7], jnp.int32)
     got = int8_paged_decode_attention(q, kq, ks, vq, vs, kp, vp, lo, hi,
                                       jnp.int32(1), interpret=False)
-    ref = int8_paged_decode_attention_xla(q, kq, ks, vq, vs, kp, vp, lo, hi,
-                                          jnp.int32(1))
+    ref = int8_paged_decode_attention_reference(q, kq, ks, vq, vs, kp, vp,
+                                                lo, hi, jnp.int32(1))
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=_TOL)

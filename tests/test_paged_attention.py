@@ -8,7 +8,7 @@ import numpy as np
 
 from physics_llm_inference.kernels.decode_attention import (
     decode_attention_reference, gather_pages, int8_paged_decode_attention,
-    int8_paged_decode_attention_xla)
+    int8_paged_decode_attention_reference)
 from physics_llm_inference.kernels.quant import quantize_int8
 from physics_llm_inference.ops.gqa import grouped_sdpa
 
@@ -224,7 +224,7 @@ def _stacked_pools(rng, L, NB, hkv, d):
 
 class TestInt8PagedKernel:
     def test_matches_dequant_paged_reference(self):
-        """int8 paged kernel ≡ the XLA path (gather, exact dequant, f32
+        """int8 paged kernel ≡ the reference (gather, exact dequant, f32
         attention) with the merged K/V pool and separate page tables."""
         rng = np.random.default_rng(5)
         L, NB, B, hq, hkv, d, maxb = 2, 24, 2, 4, 2, 64, 4
@@ -241,10 +241,10 @@ class TestInt8PagedKernel:
             args = (q, kv, kvs, kv, kvs, 2 * tables, 2 * tables + 1, lo,
                     lens, jnp.int32(l))
             out = int8_paged_decode_attention(*args, interpret=True)
-            ref = int8_paged_decode_attention_xla(*args)
+            ref = int8_paged_decode_attention_reference(*args)
             np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                        atol=TOL)
-            # and the XLA path ≡ dense attention over the dequantized K/V
+            # and the reference ≡ dense attention over the dequantized K/V
             kd = (kq[l].reshape(NB, BS, hkv, d).astype(jnp.float32)
                   * ks[l][..., None])
             vd = (vq[l].reshape(NB, BS, hkv, d).astype(jnp.float32)

@@ -239,13 +239,11 @@ class TestPagedKernelPath:
                                                  interpret_kernel):
         """The paged engine with INT8 pools, decode attention through the
         kernel (interpreted), stays close to the plain XLA path."""
-        import dataclasses
-
         prompt = [int(x) for x in (np.arange(21) % 97) + 1]
         out = {}
-        for impl in ("auto", "dense"):
-            cfg = dataclasses.replace(CFG, attention_impl=impl)
-            eng = PagedInferenceEngine(params, cfg, PagedEngineConfig(
+        for impl, on in (("auto", True), ("dense", False)):
+            interpret_kernel(on)
+            eng = PagedInferenceEngine(params, CFG, PagedEngineConfig(
                 num_blocks=32, block_size=8, max_batch=4,
                 max_blocks_per_request=8, prompt_buckets=(8, 16, 32),
                 kv_dtype="int8"))
